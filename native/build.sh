@@ -1,7 +1,7 @@
 #!/bin/sh
-# Build the native IO library into the package (see patchwork_tpu/io/native.py).
+# Build the native IO library into build/native/ (gitignored), keyed on a
+# hash of the source and flags -- the same build patchwork_tpu/io/native.py
+# runs on first use.
 set -e
-cd "$(dirname "$0")"
-g++ -O3 -march=native -fPIC -shared -std=c++17 \
-    patchwork_native.cpp -o ../patchwork_tpu/io/_patchwork_native.so
-echo "built patchwork_tpu/io/_patchwork_native.so"
+cd "$(dirname "$0")/.."
+python -c "from patchwork_tpu.io.native import build_library; print('built', build_library())"

@@ -1,7 +1,7 @@
 // Native host-side IO/preprocessing for patchwork_tpu.
 //
-// TPU-native equivalent of the reference's C++ runtime layer: the compute
-// path lives on the TPU (JAX/XLA), but ingest hot loops — point-record
+// Equivalent of the reference's C++ runtime layer: the compute path lives
+// on the device (JAX/XLA), but ingest hot loops — point-record
 // extraction from serialized messages, KITTI bin loading with validity
 // masking, and the host-side voxel-grid downsample (reference
 // PointCloudProcessor::voxelGridFilter, point_cloud_processor.cpp:150-196,
@@ -9,7 +9,8 @@
 // natively and hand SoA float32 buffers straight to the device.
 //
 // Exposed as a plain C ABI consumed via ctypes (patchwork_tpu/io/native.py).
-// Build: native/build.sh (g++ -O3 -march=native -shared -fPIC).
+// Built on first use by patchwork_tpu/io/native.py (or native/build.sh)
+// with g++ -O3 -fPIC -shared -std=c++17 into build/native/.
 
 #include <cmath>
 #include <cstdint>

@@ -1,9 +1,9 @@
-"""patchwork_tpu — a TPU-native LiDAR perception engine.
+"""patchwork_tpu — a LiDAR perception engine on JAX/XLA.
 
 Brand-new implementation (not a port) of the Recursive Patchwork ground
 segmentation pipeline with multi-LiDAR fusion, pure-array ingest, BEV
 visualization, CLI/streaming front ends, and mesh-sharded batch execution,
-built on JAX / XLA / Pallas / pjit.  See SURVEY.md for the structural map
+built on JAX / XLA / pjit.  See SURVEY.md for the structural map
 of the reference implementation this replaces.
 """
 

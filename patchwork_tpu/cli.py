@@ -25,7 +25,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="patchwork_tpu",
-        description="TPU-native Recursive Patchwork ground segmentation",
+        description="Recursive Patchwork ground segmentation",
     )
     p.add_argument("input", nargs="?",
                    help=".bin / .npz point cloud, or .db3/.mcap bag file")
@@ -201,7 +201,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     # persistent XLA compile cache: CLI invocations are one-shot processes
-    # and XLA:TPU compile dominates their wall time (core/device.py)
+    # whose wall time compilation can dominate (core/device.py)
     from .core.device import enable_compilation_cache
 
     enable_compilation_cache()

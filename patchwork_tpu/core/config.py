@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native Recursive Patchwork engine.
+"""Configuration for the Recursive Patchwork engine.
 
 One frozen, hashable dataclass carries *every* constant of the algorithm,
 including the ones the reference hard-codes outside its config struct
@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Tuple
+
+SEGMENT_IMPLS = ("scatter", "onehot")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +55,9 @@ class PatchworkConfig:
     seed_percentile: float = 0.1  # cpp:158 (non-adaptive seed path)
     min_seed_points: int = 3      # cpp:172-182
 
-    # --- TPU-native engine knobs (no reference equivalent) ---
+    # --- engine knobs (no reference equivalent) ---
     # The reference recurses with unbounded (depth<=1000) data-dependent
-    # splits (cpp:109-308).  The TPU engine flattens the recursion into
+    # splits (cpp:109-308).  The engine flattens the recursion into
     # `max_levels` batched levels; splits deeper than this are truncated
     # (the node keeps its converged ground mask).  Splits beyond depth ~5
     # are essentially unreachable because min_patch_size grows as 50+10*d
@@ -71,22 +73,14 @@ class PatchworkConfig:
     # pathologically fragmented scenes.
     max_active_nodes_cfg: int = 0
 
-    # Segment-op backend: None = auto per platform ('fused' whole-level
-    # Pallas mega-kernel on TPU, 'onehot' MXU matmuls under GSPMD sharding,
-    # 'scatter' elsewhere); see segment/segops.py and kernels/fit_pallas.py.
+    # Segment-op impl (one of SEGMENT_IMPLS): None = segops.DEFAULT_IMPL
+    # (on a supported platform); see segment/segops.py.
     segment_impl: str | None = None
 
-    # Fast (IoU-parity) covariance mode for the fused Pallas path: points
-    # are shifted to their base patch's static polar center and each fit
-    # iteration runs as ONE fused sweep accumulating raw second moments
-    # (cov = M2 - S S^T/n) instead of the reference's two-pass centered
-    # accumulation (src/recursive_patchwork.cpp:86-95).  The shift bounds
-    # the f32 cancellation so masks stay IoU~=1 vs the exact path, but
-    # bitwise parity with oracle/reference.py is no longer guaranteed —
-    # leave False when bit-exact masks are required.
-    fast_covariance: bool = False
-
     def __post_init__(self) -> None:
+        if self.segment_impl not in (None,) + SEGMENT_IMPLS:
+            raise ValueError(f"segment_impl {self.segment_impl!r} not in "
+                             f"{SEGMENT_IMPLS}")
         if self.num_rings < 1 or self.num_sectors < 1:
             raise ValueError("num_rings and num_sectors must be >= 1")
         if self.max_levels < 1:

@@ -1,12 +1,12 @@
 """Core array containers.
 
-TPU-native stance: point clouds are fixed-capacity SoA ``(N, 3)`` float32
+Point clouds are fixed-capacity SoA ``(N, 3)`` float32
 arrays with a validity mask, registered as JAX pytrees so they flow through
 ``jit``/``vmap``/``pjit`` unchanged.  This replaces the reference's
 AoS ``std::vector<Point3D>`` (include/recursive_patchwork.hpp:18-22) and the
 per-op AoS<->SoA repacking its CUDA layer does on every call
 (cuda/cuda_interface.cu:119-132) — here the SoA layout is the one and only
-layout, resident in HBM from ingest onward.
+layout, resident in device memory from ingest onward.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ class GroundResult:
     """Output of the segmentation engine for one scan (all fixed-shape masks).
 
     The reference returns two compacted vectors (ground, non-ground)
-    (src/recursive_patchwork.cpp:310-426); on TPU we keep fixed shapes and
+    (src/recursive_patchwork.cpp:310-426); here we keep fixed shapes and
     return masks over the input rows instead.  ``ground & valid`` and
     ``~ground & valid`` recover the reference's two sets exactly
     (finite-ness is folded into ``valid``).

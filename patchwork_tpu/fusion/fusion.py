@@ -1,4 +1,4 @@
-"""Multi-LiDAR fusion, TPU-native.
+"""Multi-LiDAR fusion as one device computation.
 
 The reference fuses sensors one at a time on the host: per-sensor rotate
 (GPU round-trip) then ego removal then std::vector concatenation

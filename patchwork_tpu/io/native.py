@@ -1,15 +1,21 @@
 """ctypes bindings for the native IO library (native/patchwork_native.cpp).
 
-Auto-builds the shared library on first use when a toolchain is present;
-every entry point has a NumPy fallback, so the package works without a
-compiler.  Use ``native_available()`` to check which path is active.
+The shared library is built from the tracked source on first use, into a
+gitignored directory of the checkout (:data:`BUILD_DIR`), under a file name
+keyed on a hash of the source and the compiler flags: a changed source or
+flag set builds a new library, and a library built elsewhere is never
+loaded.  Every entry point has a NumPy fallback, so the package works
+without a compiler.  Use ``native_available()`` to check which path is
+active.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional, Tuple
 
@@ -21,12 +27,43 @@ __all__ = [
     "load_kitti_bin_padded",
     "voxel_downsample_host",
     "NativeAssociator",
+    "build_library",
 ]
 
-_LIB_NAME = "_patchwork_native.so"
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SOURCE = os.path.join(_REPO, "native", "patchwork_native.cpp")
+BUILD_DIR = os.path.join(_REPO, "build", "native")
+# portable flags: no -march=native, the checkout may move to another CPU
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def build_library(source: str = SOURCE, build_dir: str = BUILD_DIR) -> str:
+    """Path of the library built from ``source``; builds it if missing.
+
+    The file name carries the first 16 hex digits of sha256(source bytes,
+    flags), so a stale build is never reused.  Raises OSError or
+    subprocess.SubprocessError when the build fails.
+    """
+    with open(source, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode())
+    path = os.path.join(build_dir,
+                        f"_patchwork_native-{key.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *CXX_FLAGS, source, "-o", tmp],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, path)  # atomic: concurrent builders never see half
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -35,26 +72,9 @@ def _load() -> Optional[ctypes.CDLL]:
         if _tried:
             return _lib
         _tried = True
-        here = os.path.dirname(os.path.abspath(__file__))
-        so_path = os.path.join(here, _LIB_NAME)
-        if not os.path.exists(so_path):
-            src = os.path.normpath(
-                os.path.join(here, "..", "..", "native", "patchwork_native.cpp")
-            )
-            if os.path.exists(src):
-                try:
-                    subprocess.run(
-                        ["g++", "-O3", "-march=native", "-fPIC", "-shared",
-                         "-std=c++17", src, "-o", so_path],
-                        check=True, capture_output=True, timeout=120,
-                    )
-                except (OSError, subprocess.SubprocessError):
-                    return None
-        if not os.path.exists(so_path):
-            return None
         try:
-            lib = ctypes.CDLL(so_path)
-        except OSError:
+            lib = ctypes.CDLL(build_library())
+        except (OSError, subprocess.SubprocessError):
             return None
         lib.pw_extract_xyz.restype = ctypes.c_int64
         lib.pw_extract_xyz.argtypes = [
@@ -69,21 +89,18 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.pw_voxel_downsample.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_void_p,
         ]
-        try:  # associator entry points (absent in pre-r3 cached builds)
-            lib.pw_assoc_create.restype = ctypes.c_void_p
-            lib.pw_assoc_create.argtypes = [ctypes.c_double]
-            lib.pw_assoc_destroy.argtypes = [ctypes.c_void_p]
-            lib.pw_assoc_size.restype = ctypes.c_int64
-            lib.pw_assoc_size.argtypes = [ctypes.c_void_p]
-            lib.pw_assoc_add.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p,
-            ]
-            lib.pw_assoc_export.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-        except AttributeError:
-            pass
+        lib.pw_assoc_create.restype = ctypes.c_void_p
+        lib.pw_assoc_create.argtypes = [ctypes.c_double]
+        lib.pw_assoc_destroy.argtypes = [ctypes.c_void_p]
+        lib.pw_assoc_size.restype = ctypes.c_int64
+        lib.pw_assoc_size.argtypes = [ctypes.c_void_p]
+        lib.pw_assoc_add.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
+        lib.pw_assoc_export.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _lib = lib
         return _lib
 
@@ -149,7 +166,7 @@ class NativeAssociator:
 
     def __init__(self, gate: float):
         lib = _load()
-        if lib is None or not hasattr(lib, "pw_assoc_create"):
+        if lib is None:
             raise RuntimeError("native associator unavailable")
         self._lib = lib
         self._h = lib.pw_assoc_create(float(gate))

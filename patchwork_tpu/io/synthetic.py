@@ -141,8 +141,7 @@ def velodyne_like_cloud(
     spinning sensor (and the row order of KITTI velodyne ``.bin`` files
     and PointCloud2 streams).  The engine is order-independent for
     correctness, but azimuth order makes polar patches near-contiguous in
-    memory, which the fit kernels' dirty-tile caches exploit
-    (kernels/fit_pallas.py phase 5).
+    memory.
     """
     rng = np.random.default_rng(seed)
     n_obst = int(num_points * obstacle_fraction)

@@ -1,5 +1,6 @@
 """Pure-JAX op kit (golden, jit-able): the reference's accelerated op
-inventory re-designed for TPU (see pointcloud.py / geometry.py / sampling.py)."""
+inventory re-designed as fixed-shape array ops (see pointcloud.py /
+geometry.py / sampling.py)."""
 
 from .geometry import (
     eigh3x3,

@@ -2,15 +2,15 @@
 
 This mirrors, 1:1, the reference's accelerated op inventory
 (cuda/cuda_wrapper.cu:13-111 kernels + cuda/cuda_interface.cu:537-654
-dispatch + src/point_cloud_processor.cpp utilities), re-designed for TPU:
+dispatch + src/point_cloud_processor.cpp utilities), re-designed as array
+programs:
 
 * masks instead of compaction (fixed shapes; no dynamic-size outputs),
 * SoA ``(N, 3)`` arrays resident on device — no per-op host staging,
 * everything composes under ``jit`` / ``vmap`` / ``pjit`` and fuses in XLA.
 
-These functions are also the differential-test oracle for the Pallas
-kernels in ``patchwork_tpu.kernels`` (the reference's test_cuda.cpp
-CPU-vs-GPU pattern, src/test_cuda.cpp:39-56).
+tools/parity_bench.py times them against host NumPy (the reference's
+test_cuda.cpp CPU-vs-GPU pattern, src/test_cuda.cpp:39-56).
 """
 
 from __future__ import annotations

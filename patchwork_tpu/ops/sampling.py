@@ -1,6 +1,6 @@
 """Sampling / downsampling ops: seeded random subsample, voxel-grid filter.
 
-TPU-native re-design of the reference's host-side samplers:
+Device-side re-design of the reference's host-side samplers:
 
 * ``random_subsample_mask`` replaces the unseeded rejection-sampling loop in
   PointCloudProcessor::randomSubsample (point_cloud_processor.cpp:122-148)
@@ -55,7 +55,7 @@ def voxel_grid_filter(xyz: jax.Array, valid: jax.Array, voxel_size: float):
     vox = jnp.floor(xyz * inv).astype(jnp.int32)  # (N, 3)
 
     # Lexicographic 3-key sort on voxel coords (int64 packing would need
-    # x64 mode; multi-key lax.sort is TPU-native).  Invalid rows sort last.
+    # x64 mode; multi-key lax.sort does not).  Invalid rows sort last.
     big = jnp.int32(2**31 - 1)
     kx = jnp.where(valid, vox[:, 0], big)
     ky = jnp.where(valid, vox[:, 1], big)

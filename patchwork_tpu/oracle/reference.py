@@ -1,6 +1,6 @@
 """NumPy oracle: a faithful, recursive re-statement of the reference
 algorithm's semantics (src/recursive_patchwork.cpp), used ONLY as the
-differential-test golden path for the TPU engine.
+differential-test golden path for the array engine.
 
 This adopts the reference's own test strategy — a trusted slow path vs the
 accelerated path on identical inputs (src/test_cuda.cpp:39-56) — with this
@@ -10,7 +10,7 @@ Deliberate deviation (documented per SURVEY.md §7): the reference's
 split-combine writes child labels in left-then-right order instead of the
 original patch order (src/recursive_patchwork.cpp:290-302), permuting labels
 whenever a patch splits.  This oracle performs the *correct*
-order-preserving combine; the TPU engine matches the oracle.  On
+order-preserving combine; the engine matches the oracle.  On
 configurations where no split triggers, oracle and reference are
 semantically identical.
 

@@ -1,11 +1,12 @@
-"""Device mesh construction for pod-slice execution.
+"""Device mesh construction for multi-device execution.
 
 The reference has no multi-device compute at all (single cudaSetDevice(0),
 cuda/cuda_interface.cu:68; its "distribution" is ROS2 pub-sub between OS
-processes).  The TPU-native scaling model is SPMD over a
-``jax.sharding.Mesh``: scans batch-shard over the ``dp`` axis, and points
-within a scan shard over the ``sp`` axis; XLA inserts the collectives
-(psum/all-gather) over ICI.
+processes).  Here the scaling model is SPMD over a ``jax.sharding.Mesh``:
+scans batch-shard over the ``dp`` axis, and points within a scan shard
+over the ``sp`` axis; XLA inserts the collectives (psum/all-gather, NCCL
+on GPUs).  The cards of one host are joined all to all, so the mesh shape
+follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Multi-host SPMD process-group setup.
 
 The reference's only "distribution" is ROS2/DDS pub-sub between OS
-processes (SURVEY.md §2); the TPU-native model is one JAX process per
-host, all hosts executing the same program over a global mesh, with XLA
-collectives riding ICI within a slice and DCN across slices.
+processes (SURVEY.md §2); here the model is one JAX process per host,
+all hosts executing the same program over a global mesh, with XLA
+inserting the collectives between them.
 
 Call :func:`initialize_multihost` once at startup on every host (it no-ops
 in single-process settings), then build meshes with

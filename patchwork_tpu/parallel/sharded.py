@@ -1,21 +1,17 @@
-"""Mesh-sharded batch segmentation (pjit/GSPMD + shard_map fused).
+"""Mesh-sharded batch segmentation (pjit/GSPMD + dp shard_map).
 
-Two sharded execution paths:
+Two sharded execution paths, both running the default segment-op impl
+(segops.DEFAULT_IMPL) unless ``cfg.segment_impl`` names one:
 
 * ``sp > 1`` (points sharded within a scan): the engine jit-compiles under
-  GSPMD with the pure-XLA 'onehot' segment impl — XLA partitions the
-  segment reductions and inserts the ICI collectives.  Per-node arrays
-  stay replicated (tiny next to the points), so collective traffic per
-  step is O(nodes), not O(points).
-* ``sp == 1`` (whole scans per device, the common pod layout): scans are
-  independent across ``dp``, so :func:`make_shardmap_fused` runs the FULL
-  fused Pallas mega-kernel engine on each device's local shard under
-  ``shard_map`` — a ``pallas_call`` cannot be GSPMD-auto-partitioned, but
-  inside shard_map it only ever sees local, unsharded arrays.  Per-chip
-  throughput on a pod therefore matches the single-chip fused rate
-  (~9x the onehot rate at KITTI scale); no collective is needed until
-  the summary reduce.  Masks are bit-identical to a single-device run
-  (asserted in __graft_entry__.dryrun_multichip).
+  GSPMD — XLA partitions the segment reductions and inserts the
+  collectives.  Per-node arrays stay replicated (tiny next to the
+  points), so collective traffic per step is O(nodes), not O(points).
+* ``sp == 1`` (whole scans per device): scans are independent across
+  ``dp``, so :func:`make_dp_sharded_filter_ground` runs the batched engine
+  on each device's local shard under ``shard_map``; no collective is
+  needed until the summary reduce.  Masks are bit-identical to a
+  single-device run (asserted in __graft_entry__.dryrun_multichip).
 
 The reference has no multi-device analogue at all (single
 cudaSetDevice(0), cuda/cuda_interface.cu:68).
@@ -31,21 +27,21 @@ from jax.sharding import PartitionSpec as P
 
 from ..core.config import PatchworkConfig
 from ..segment.engine import filter_ground
-from ..segment.segops import default_impl
-from .mesh import DATA_AXIS, POINT_AXIS, scan_batch_sharding
+from .mesh import DATA_AXIS, scan_batch_sharding
 
 __all__ = ["make_sharded_filter_ground", "make_sharded_pipeline",
-           "make_shardmap_fused"]
+           "make_dp_sharded_filter_ground"]
 
 
-def _use_fused_shardmap(cfg: PatchworkConfig, shard_points: bool) -> bool:
-    """Route whole-scan-per-device execution through the fused engine."""
-    impl = cfg.segment_impl or default_impl()
-    return (not shard_points) and impl == "fused"
+def _counts(res):
+    ground_cnt = jnp.sum(res.ground, axis=-1, dtype=jnp.int32)
+    nong_cnt = jnp.sum(res.valid & ~res.ground, axis=-1, dtype=jnp.int32)
+    return res, ground_cnt, nong_cnt
 
 
-def make_shardmap_fused(cfg: PatchworkConfig, mesh, with_counts: bool = False):
-    """dp-sharded batched engine running the fused mega-kernel per device.
+def make_dp_sharded_filter_ground(cfg: PatchworkConfig, mesh,
+                                  with_counts: bool = False):
+    """dp-sharded batched engine: each device segments its local scans.
 
     fn(xyz (B,N,3), valid (B,N)) -> GroundResult of (B,N) masks (plus
     per-frame (B,) ground / non-ground counts when ``with_counts``).
@@ -55,13 +51,8 @@ def make_shardmap_fused(cfg: PatchworkConfig, mesh, with_counts: bool = False):
     """
 
     def local(xyz, valid):
-        res = jax.vmap(
-            lambda p, v: filter_ground(p, v, cfg, impl="fused"))(xyz, valid)
-        if not with_counts:
-            return res
-        ground_cnt = jnp.sum(res.ground, axis=-1, dtype=jnp.int32)
-        nong_cnt = jnp.sum(res.valid & ~res.ground, axis=-1, dtype=jnp.int32)
-        return res, ground_cnt, nong_cnt
+        res = jax.vmap(lambda p, v: filter_ground(p, v, cfg))(xyz, valid)
+        return _counts(res) if with_counts else res
 
     mask_spec = P(DATA_AXIS, None)
     out_specs = (mask_spec, P(DATA_AXIS), P(DATA_AXIS)) if with_counts \
@@ -82,20 +73,14 @@ def make_sharded_filter_ground(
     """jit-compiled (B, N) batched engine with mesh input/output shardings.
 
     Returns fn(xyz (B,N,3), valid (B,N)) -> GroundResult of (B,N) masks.
-    With ``shard_points=False`` on a fused-capable backend this routes
-    through :func:`make_shardmap_fused` (full per-chip kernel speed);
-    otherwise GSPMD partitions the 'onehot' engine.
+    ``shard_points=False`` routes through
+    :func:`make_dp_sharded_filter_ground`; otherwise GSPMD partitions the
+    engine over the point axis too.
     """
-    if _use_fused_shardmap(cfg, shard_points):
-        return make_shardmap_fused(cfg, mesh)
+    if not shard_points:
+        return make_dp_sharded_filter_ground(cfg, mesh)
 
     xyz_s, valid_s = scan_batch_sharding(mesh, shard_points)
-
-    # GSPMD partitions XLA ops only: force the pure-XLA segment impl (the
-    # 'fused' pallas path cannot be auto-sharded over the point axis)
-    impl = cfg.segment_impl or default_impl(gspmd=True)
-    if impl == "fused":
-        impl = "onehot"
 
     @functools.partial(
         jax.jit,
@@ -103,8 +88,7 @@ def make_sharded_filter_ground(
         out_shardings=valid_s,
     )
     def fn(xyz, valid):
-        return jax.vmap(lambda p, v: filter_ground(p, v, cfg, impl=impl))(
-            xyz, valid)
+        return jax.vmap(lambda p, v: filter_ground(p, v, cfg))(xyz, valid)
 
     return fn
 
@@ -116,20 +100,14 @@ def make_sharded_pipeline(cfg: PatchworkConfig, mesh, shard_points: bool = True)
     ROS2 node publishes as markers, recursive_patchwork_node.cpp:159-221)
     reduces on device so only (B, 2) ints cross to the host.
     """
-    if _use_fused_shardmap(cfg, shard_points):
-        return make_shardmap_fused(cfg, mesh, with_counts=True)
+    if not shard_points:
+        return make_dp_sharded_filter_ground(cfg, mesh, with_counts=True)
 
     xyz_s, valid_s = scan_batch_sharding(mesh, shard_points)
-    impl = cfg.segment_impl or default_impl(gspmd=True)
-    if impl == "fused":
-        impl = "onehot"
 
     @functools.partial(jax.jit, in_shardings=(xyz_s, valid_s))
     def fn(xyz, valid):
-        res = jax.vmap(lambda p, v: filter_ground(p, v, cfg, impl=impl))(
-            xyz, valid)
-        ground_cnt = jnp.sum(res.ground, axis=-1, dtype=jnp.int32)
-        nong_cnt = jnp.sum(res.valid & ~res.ground, axis=-1, dtype=jnp.int32)
-        return res, ground_cnt, nong_cnt
+        return _counts(jax.vmap(lambda p, v: filter_ground(p, v, cfg))(
+            xyz, valid))
 
     return fn

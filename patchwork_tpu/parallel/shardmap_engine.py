@@ -6,7 +6,7 @@ This module is the hand-written alternative for the single-level
 every per-node statistic is computed as a LOCAL partial on each device and
 combined with explicit collectives — ``psum`` for sums/counts/moments,
 ``pmin``/``pmax`` for bounding boxes and the lexicographic seed fallback —
-so the ICI traffic is exactly the (num_nodes, channels) block per
+so the collective traffic is exactly the (num_nodes, channels) block per
 reduction step and nothing else.
 
 Restrictions (asserted): effective_levels == 1 (no split machinery — the

@@ -19,8 +19,7 @@ import jax.numpy as jnp
 from ..core.config import PatchworkConfig
 from ..ops.pointcloud import distance_2d, finite_mask, polar_angle
 
-__all__ = ["ring_edges", "sector_edges", "patch_centers", "PatchAssignment",
-           "assign_patches"]
+__all__ = ["ring_edges", "sector_edges", "PatchAssignment", "assign_patches"]
 
 
 def ring_edges(cfg: PatchworkConfig) -> np.ndarray:
@@ -47,32 +46,6 @@ def sector_edges(cfg: PatchworkConfig) -> np.ndarray:
     return s * np.float32(2.0 * math.pi / cfg.num_sectors)
 
 
-def patch_centers(cfg: PatchworkConfig) -> np.ndarray:
-    """(P+1, 3) static per-patch shift origins for fast_covariance mode.
-
-    Each base patch's polar-cell center: radial midpoint of its ring
-    annulus on its sector's bisector, z = 0.  Subtracting this from every
-    point of the patch bounds |x|,|y| by the cell extent, which keeps the
-    single-sweep raw-moment covariance (cov = M2 - S S^T / n) far from f32
-    cancellation — the reason the reference (and the exact path here) needs
-    a two-pass centered accumulation (src/recursive_patchwork.cpp:86-95).
-    The trash row (index P) is zero.  Every per-node computation downstream
-    is invariant under a per-patch rigid xy translation (seeds and flatness
-    use z only; extents, medians, variances and plane distances are
-    translation-invariant), so only float rounding can differ.
-    """
-    r_e = ring_edges(cfg)
-    s_e = sector_edges(cfg)
-    r_c = 0.5 * (r_e[:-1] + r_e[1:])                      # (R,)
-    a_c = 0.5 * (s_e[:-1] + s_e[1:])                      # (S,)
-    cx = r_c[:, None] * np.cos(a_c)[None, :]              # (R, S)
-    cy = r_c[:, None] * np.sin(a_c)[None, :]
-    out = np.zeros((cfg.num_patches + 1, 3), np.float32)
-    out[: cfg.num_patches, 0] = cx.reshape(-1)
-    out[: cfg.num_patches, 1] = cy.reshape(-1)
-    return out
-
-
 class PatchAssignment(NamedTuple):
     patch: jax.Array      # (N,) int32 patch id in [0, P); P (=trash) if not in a patch
     in_patch: jax.Array   # (N,) bool
@@ -90,7 +63,7 @@ def assign_patches(
     fin = valid & finite_mask(xyz)
     # Zero non-finite coordinates: they are excluded from every patch by
     # `fin` anyway, but a NaN value would otherwise poison the one-hot
-    # matmul segment reductions (0 * NaN = NaN in IEEE; the MXU 'onehot'
+    # matmul segment reductions (0 * NaN = NaN in IEEE; the 'onehot'
     # impl multiplies every point row into every segment column).
     xyz = jnp.where(fin[:, None], xyz, 0.0)
     d = distance_2d(xyz)

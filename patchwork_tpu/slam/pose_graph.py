@@ -6,7 +6,7 @@ with right perturbations; per-edge 6-dof Jacobian blocks come from
 ``jax.jacfwd`` through the residual (exact autodiff through se3 log/exp),
 vmapped over all edges at once.
 
-TPU-first structure: the normal equations assemble as segment-sums of
+Structure: the normal equations assemble as segment-sums of
 per-edge outer-product blocks into a dense (6K, 6K) system (keyframe
 counts here are 10^2-10^3, so the dense solve is tiny next to the edge
 math); edge batches shard over the mesh's data axis in the distributed
@@ -58,7 +58,7 @@ def _edge_jacobians(poses: jax.Array, g: PoseGraph):
     se3.se3_right_jacobian_inv carries the exact Q coupling block) —
     straight-line code instead of forward-mode AD through the
     log/compose/exp chain, whose jaxpr was the compile hog measured in
-    the BA solver (ba_bench: jacfwd ~60 s of XLA:TPU compile);
+    the BA solver (ba_bench: jacfwd ~60 s of compile);
     'jacfwd' keeps the AD path as the differential oracle
     (tests/test_slam.py asserts both agree to f32 rounding).
     """
@@ -155,8 +155,8 @@ def _pcg_solve(g, blocks, b, damping, anchor_weight, cg_iters, cg_tol):
 
     # block-Jacobi preconditioner: exact 6x6 diagonal blocks of H.
     # _batched_inv (closed-form block-Schur, ba.py) instead of
-    # jnp.linalg.inv: the batched LU lowers to dynamic control flow on
-    # XLA:TPU and cost ~7 s of compile in the BA solver (ba_bench A/B).
+    # jnp.linalg.inv: the batched LU lowers to dynamic control flow and
+    # cost ~7 s of compile in the BA solver (ba_bench A/B).
     diag = jnp.zeros((k, 6, 6), _F32).at[g.edge_i].add(H_ii).at[g.edge_j].add(H_jj)
     diag = diag + _F32(damping) * jnp.eye(6, dtype=_F32)[None]
     diag = diag.at[0].add(_F32(anchor_weight) * jnp.eye(6, dtype=_F32))

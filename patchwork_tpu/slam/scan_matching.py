@@ -1,11 +1,11 @@
 """Ground-constrained scan matching (frame-to-frame LiDAR odometry).
 
-TPU-first design:
+Design:
 
 * correspondences by brute-force nearest neighbor over voxel-downsampled
-  obstacle points — the (N, M) squared-distance matrix is ONE matmul on
-  the MXU (|p-q|^2 = |p|^2 + |q|^2 - 2 p.q), the TPU-idiomatic
-  alternative to k-d trees (pointer chasing does not vectorize);
+  obstacle points — the (N, M) squared-distance matrix is ONE matmul
+  (|p-q|^2 = |p|^2 + |q|^2 - 2 p.q), the array-program alternative to
+  k-d trees (pointer chasing does not vectorize);
 * residuals: point-to-point on obstacle correspondences (constrain x, y,
   yaw) + point-to-plane against the target's GROUND plane from the
   Patchwork segmentation (constrain z, roll, pitch) — the segmentation
@@ -14,7 +14,7 @@ TPU-first design:
   the closed form R [I | -[s]x] (point-to-point) / [(R^T n)^T, (g x
   R^T n)^T] (point-to-plane) — ``jax.jacfwd`` through the residual is
   kept as the differential oracle (PATCHWORK_TPU_ICP_JAC=jacfwd; the AD
-  chain's jaxpr is the XLA:TPU compile-hog class measured in ba_bench);
+  chain's jaxpr compiles far slower, as measured in ba_bench);
   fixed iteration count under ``lax.scan``.
 """
 
@@ -51,16 +51,15 @@ class MatchResult(NamedTuple):
 def nearest_neighbors(src: jax.Array, tgt: jax.Array, tgt_valid: jax.Array):
     """Index + squared distance of each src point's nearest valid tgt point.
 
-    One MXU matmul: d2 = |p|^2 + |q|^2 - 2 p.q; invalid targets -> +inf.
+    One matmul: d2 = |p|^2 + |q|^2 - 2 p.q; invalid targets -> +inf.
 
-    PATCHWORK_TPU_ICP_NN=default opts the cross-term matmul into MXU
-    default (bf16-operand) precision — unlike the SE(3) compose bias the
-    r3 precision finding fixed, a distance error here only swaps
-    near-tied NEIGHBORS, which Gauss-Newton is robust to, and the
-    returned d2 (inlier gating/RMSE) is recomputed exactly from the
-    gathered pair.  OFF by default until an ATE + loop-closure A/B on
-    hardware clears it (CLAUDE.md roadmap; same protocol as r3's se3
-    finding).
+    PATCHWORK_TPU_ICP_NN=default opts the cross-term matmul into default
+    precision (TF32 on the GPU) — unlike the SE(3) compose bias that
+    full precision fixed, a distance error here only swaps near-tied
+    NEIGHBORS, which Gauss-Newton is robust to, and the returned d2
+    (inlier gating/RMSE) is recomputed exactly from the gathered pair.
+    OFF by default until an ATE + loop-closure A/B on the card clears
+    it.
     """
     d2 = (
         jnp.sum(src * src, axis=1)[:, None]
@@ -72,7 +71,7 @@ def nearest_neighbors(src: jax.Array, tgt: jax.Array, tgt_valid: jax.Array):
     if _NN_PRECISION == "highest":
         return idx, jnp.take_along_axis(d2, idx[:, None], axis=1)[:, 0]
     # exact squared distance of the CHOSEN pair (gating/RMSE stay f32-
-    # exact even when the search matmul ran at bf16 operand precision).
+    # exact even when the search matmul ran at reduced precision).
     # If every target is invalid, argmin over an all-inf row returns 0 —
     # keep d2 = inf so the gate rejects the bogus pair (ADVICE r4).
     diff = src - tgt[idx]
@@ -131,8 +130,8 @@ def icp_ground_constrained(
 
         if _ANALYTIC_JAC:
             # closed-form right-perturbation Jacobians (the jacfwd chain
-            # through se3_exp/compose/apply is the XLA:TPU compile-hog
-            # class measured in ba_bench; jacfwd kept below as the
+            # through se3_exp/compose/apply compiles far slower, as
+            # measured in ba_bench; jacfwd kept below as the
             # differential oracle, PATCHWORK_TPU_ICP_JAC=jacfwd):
             #   d[(T exp(xi)) s]/dxi = R [I | -[s]x]      (s in src frame)
             #   d[n . (T exp(xi)) g]/dxi = [(R^T n)^T, (g x R^T n)^T]

@@ -7,10 +7,11 @@ INCLUDING at the identity (the Jacobians in scan_matching/pose_graph are
 ``jax.jacfwd`` at xi = 0): every angle-dependent coefficient uses the
 double-where pattern so no NaN flows through ``sqrt``/``arccos`` at 0.
 
-Every matmul here runs at ``precision="highest"``: on TPU the MXU's
-default bf16 operand rounding costs ~0.4% relative error — ~0.2 m at
-LiDAR ranges — which measurably doubles ICP odometry drift (observed
-2.02 m vs 1.04 m ATE on the 100-keyframe benchmark before this fix).
+Every matmul here runs at ``precision="highest"``: reduced-precision
+operands (bf16, or TF32 — the default for f32 matmuls on the GPU) cost
+up to ~0.4% relative error — ~0.2 m at LiDAR ranges — which measurably
+doubles ICP odometry drift (2.02 m vs 1.04 m ATE on the 100-keyframe
+benchmark with bf16 operands).
 
 No reference equivalent — the reference has no odometry/SLAM; this is the
 pose-graph extension mandated by BASELINE.json configs[4].
@@ -149,8 +150,8 @@ def se3_identity(dtype=jnp.float32) -> jax.Array:
 # closed-form Jacobian machinery (Barfoot, "State Estimation for Robotics"
 # §7.1.5 / eq. 7.86): the pose-graph Gauss-Newton needs d log / d xi at the
 # linearization point.  Differentiating through so3_log/se3_log with
-# forward-mode AD costs XLA:TPU-compile-dominating jaxprs (measured in the
-# BA solver: jacfwd ~60 s of compile); these closed forms are straight-line
+# forward-mode AD costs compile-dominating jaxprs (measured in the BA
+# solver: jacfwd ~60 s of compile); these closed forms are straight-line
 # code, validated against jacfwd to f32 rounding (tests/test_slam.py).
 # ---------------------------------------------------------------------------
 

@@ -5,7 +5,7 @@ the host (createBEVImage :18-47, createGroundNonGroundImage :49-81,
 createEnhancedFilteredImage :83-113).  Here rasterization is a jit-able
 scatter onto an ``(H, W, 3)`` uint8 canvas — it composes with the engine
 on device, and only the finished image crosses to the host for PNG
-encoding (PIL).
+encoding (stdlib zlib + struct, :func:`save_png`).
 
 Color parity (the reference stores OpenCV BGR; we emit the same on-disk
 RGB): height image pixel = (255, i, i) with i = clip((z+2)*50, 0, 255);
@@ -21,6 +21,9 @@ visualization.cpp:60-78) by scattering classes in order.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 import jax.numpy as jnp
 
@@ -28,6 +31,7 @@ __all__ = [
     "bev_height_image",
     "bev_ground_nonground_image",
     "bev_enhanced_image",
+    "encode_png",
     "save_png",
 ]
 
@@ -100,8 +104,28 @@ def bev_enhanced_image(
     return _scatter_max(img, yi, xi, ok, colors)
 
 
+def encode_png(image) -> bytes:
+    """(H, W, 3) uint8 RGB array -> PNG file bytes (8-bit truecolor)."""
+    img = np.ascontiguousarray(np.asarray(image, np.uint8))
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {img.shape}")
+    h, w, _ = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    # every scanline prefixed with filter type 0 (None)
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def save_png(image, filename: str) -> None:
     """Write an (H, W, 3) uint8 RGB array to a PNG file."""
-    from PIL import Image
-
-    Image.fromarray(np.asarray(image), "RGB").save(filename)
+    with open(filename, "wb") as f:
+        f.write(encode_png(image))

@@ -111,7 +111,7 @@ class TestBA:
     def test_auto_solver_switches_at_scale(self, monkeypatch):
         from patchwork_tpu.slam import ba as ba_mod
 
-        # 1000 kf x 40k landmarks (the recorded TPU OOM shape) must route
+        # 1000 kf x 40k landmarks (2.8 GB of dense B blocks) must route
         # to the matrix-free path: K*L far beyond the dense block budget
         assert 1000 * 40000 > ba_mod._DENSE_KL_LIMIT
         # while the test problems stay on the (bitwise-stable) dense path
@@ -150,9 +150,8 @@ class TestBA:
     def test_seg_sum_impls_agree(self):
         """All three segment-sum impls (sort-cumsum / one-hot matmul /
         scatter-add, slam/ba.py _make_seg_sums) must agree; 'onehot' and
-        'scatter' are reduction-order-exact vs each other on TPU-friendly
-        data, 'sort' to prefix-sum f32 tolerance (ADVICE r3 precision
-        note)."""
+        'scatter' agree to f32 summation-order tolerance, 'sort' to
+        prefix-sum f32 tolerance (ADVICE r3 precision note)."""
         from patchwork_tpu.slam.ba import _make_seg_sums
 
         rng = np.random.default_rng(5)
@@ -168,8 +167,8 @@ class TestBA:
 
     def test_onehot_chunked_matches_direct(self, monkeypatch):
         """Above the direct-indicator budget, 'onehot' scans over fixed
-        observation chunks (the large-O path that replaced sort's 200 s
-        XLA:TPU compile); the chunked sum must match the direct matmul."""
+        observation chunks (the large-O path, whose compile stays one
+        chunk's jaxpr); the chunked sum must match the direct matmul."""
         from patchwork_tpu.slam import ba as ba_mod
 
         rng = np.random.default_rng(7)
@@ -223,16 +222,15 @@ class TestBA:
         np.testing.assert_allclose(outs["analytic"], outs["jacfwd"],
                                    atol=1e-4)
 
-    def test_pcg_seg_impls_match(self, monkeypatch):
+    def test_pcg_seg_impls_match(self):
         """bundle_adjust(solver='pcg') poses must agree across the
-        PATCHWORK_TPU_BA_SEG impl knob (the hardware A/B lever,
-        tools/ba_bench.py)."""
+        segment-sum impls (seg_impl; the hardware A/B lever,
+        tools/ba_bench.py --seg)."""
         prob, *_ = make_problem(k=8, l=32)
         outs = {}
         for impl in ("sort", "onehot", "scatter"):
-            monkeypatch.setenv("PATCHWORK_TPU_BA_SEG", impl)
-            outs[impl] = np.asarray(
-                bundle_adjust(prob, iters=4, solver="pcg").poses)
+            outs[impl] = np.asarray(bundle_adjust(
+                prob, iters=4, solver="pcg", seg_impl=impl).poses)
         np.testing.assert_allclose(outs["onehot"], outs["scatter"], atol=1e-5)
         np.testing.assert_allclose(outs["sort"], outs["scatter"], atol=1e-4)
 
@@ -262,53 +260,6 @@ class TestBA:
 
 
 class TestLandmarkBA:
-    def test_device_extraction_matches_host(self):
-        """make_extract_observations_batched (device voxel clustering,
-        the TPU BA fetch-reduction path) must produce the same centroid
-        SET as the host voxel_downsample_host walk — same exact integer
-        voxel keys, per-voxel means equal to f32 summation order."""
-        from patchwork_tpu.slam.landmarks import (
-            extract_observations, make_extract_observations_batched)
-
-        rng = np.random.default_rng(4)
-        k, c, pillars = 6, 2048, 60
-        # pillar-clustered obstacle points (what segmentation emits);
-        # cluster count stays far under the max_obs fetch cap
-        centers = rng.uniform(-60, 60, (pillars, 2)).astype(np.float32)
-        which = rng.integers(0, pillars, (k, c))
-        pts = np.zeros((k, c, 3), np.float32)
-        pts[:, :, :2] = centers[which] + rng.normal(0, 0.3, (k, c, 2))
-        pts[:, :, 2] = rng.uniform(0.0, 3.0, (k, c))
-        valid = rng.random((k, c)) < 0.8
-        pts[~valid] = 0.0
-
-        fn = make_extract_observations_batched()
-        cents, counts, _raw = fn(jnp.asarray(pts), jnp.asarray(valid))
-        cents, counts = np.asarray(cents), np.asarray(counts)
-        for i in range(k):
-            host = extract_observations(pts[i][valid[i]])
-            dev = cents[i, : counts[i]]
-            assert len(dev) == len(host), (len(dev), len(host))
-            # match as sets (orderings differ): sort both lexicographically
-            ho = host[np.lexsort(host.T)]
-            de = dev[np.lexsort(dev.T)]
-            np.testing.assert_allclose(de, ho, rtol=1e-5, atol=1e-4)
-
-    def test_device_extraction_empty_frame(self):
-        """All-invalid keyframes must yield count 0 (and refine_with_ba's
-        per-keyframe slices then skip them), not garbage centroids."""
-        from patchwork_tpu.slam.landmarks import (
-            make_extract_observations_batched)
-
-        pts = np.zeros((2, 256, 3), np.float32)
-        pts[1, :, 2] = 2.0  # one frame with real-looking points
-        valid = np.zeros((2, 256), bool)
-        valid[1, :10] = True
-        fn = make_extract_observations_batched()
-        _, counts, raw = fn(jnp.asarray(pts), jnp.asarray(valid))
-        assert int(counts[0]) == 0 and int(raw[0]) == 0
-        assert int(counts[1]) >= 1
-
     def make_odo(self, frames=5, seed=8):
         from patchwork_tpu.core.config import PatchworkConfig
         from patchwork_tpu.io.synthetic import simulate_sequence, simulate_world

@@ -3,11 +3,11 @@
 Complements test_utils.py's single-process no-op check of
 parallel/multihost.py: here tools/multihost_bench.py spawns actual OS
 processes that join one jax.distributed group and run the dp-sharded
-fused engine, the GSPMD point-sharded engine, and the distributed
-Schur-PCG bundle adjustment with REAL cross-process (gloo) collectives —
-the same program shape a multi-host pod slice runs over ICI/DCN
-(VERDICT r3 missing #2; reference analogue: none — its multi-process
-story is the untested ROS2 graph, recursive_patchwork_node.cpp:43-53).
+batched engine, the GSPMD point-sharded engine, and the distributed
+Schur-PCG bundle adjustment with REAL cross-process (gloo) collectives,
+the same program shape a multi-host run has (reference analogue: none;
+its multi-process story is the untested ROS2 graph,
+recursive_patchwork_node.cpp:43-53).
 """
 
 import json
@@ -39,6 +39,6 @@ def test_two_process_spmd_parity(tmp_path):
     assert len(doc["workers"]) == 2
     for w in doc["workers"]:
         assert w["global_devices"] == 4
-        assert w["fused_dp_bit_errors"] == 0
+        assert w["dp_bit_errors"] == 0
         assert w["gspmd_sp_bit_errors"] == 0
         assert w["ba_pose_ok"]

@@ -73,16 +73,17 @@ class TestShardMapEngine:
 class TestProductionScaleParity:
     """Bench-shape sharded-vs-single-device bit parity (VERDICT r4 item 6).
 
-    The driver dryrun covers only reduced configs (2048 pts, radius 60,
-    max_levels 3); this runs the fused shard_map engine at the REAL bench
+    The dryrun covers only reduced configs (2048 pts, radius 60,
+    max_levels 3); this runs the dp shard_map engine at the REAL bench
     shape — 131,072-pt velodyne scans, B=8, default PatchworkConfig — on
     the virtual 8-device dp mesh and asserts every mask bit matches a
-    single-device fused run.
+    single-device run.
     """
 
-    def test_fused_dp_bench_shape(self):
+    def test_dp_bench_shape(self):
         from patchwork_tpu.io.synthetic import velodyne_like_cloud
-        from patchwork_tpu.parallel.sharded import make_shardmap_fused
+        from patchwork_tpu.parallel.sharded import (
+            make_dp_sharded_filter_ground)
 
         b, n = 8, 131072
         xyz = jnp.asarray(np.stack(
@@ -91,9 +92,10 @@ class TestProductionScaleParity:
         cfg = PatchworkConfig()  # production default, all levels
 
         mesh = make_mesh(8, dp=8, sp=1)
-        g_sm = np.asarray(make_shardmap_fused(cfg, mesh)(xyz, valid).ground)
+        g_sm = np.asarray(
+            make_dp_sharded_filter_ground(cfg, mesh)(xyz, valid).ground)
 
-        single = make_filter_ground(cfg, impl="fused")
+        single = make_filter_ground(cfg)
         for i in range(b):
             g_1 = np.asarray(single(xyz[i], valid[i]).ground)
             mm = int((g_sm[i] != g_1).sum())

@@ -4,10 +4,10 @@
 The reference's test_cuda.cpp (src/test_cuda.cpp:58-138) times each op on
 CPU vs GPU on a 100k-point uniform cube and checks elementwise parity at
 1e-6.  Here the compared backends are the segment-op implementations
-(scatter golden path, one-hot MXU formulation, hand-fused Pallas kernels)
-plus the full engine, on the reference's cube cloud and a realistic scene.
+(scatter golden path, one-hot matmul formulation) of the full engine, on
+the reference's cube cloud and a realistic scene.
 
-Usage: python tools/parity_bench.py [--points 100000] [--impls scatter onehot pallas]
+Usage: python tools/parity_bench.py [--points 100000] [--impls scatter onehot]
 """
 
 import argparse
@@ -23,8 +23,7 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--points", type=int, default=100000)
-    ap.add_argument("--impls", nargs="+",
-                    default=["scatter", "onehot", "pallas", "fused"])
+    ap.add_argument("--impls", nargs="+", default=["scatter", "onehot"])
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
 
@@ -36,7 +35,7 @@ def main():
     from patchwork_tpu.ops.pointcloud import ego_mask, rotate_2d, transform_4x4
     from patchwork_tpu.segment.engine import make_filter_ground
 
-    n = 1 << (args.points - 1).bit_length()  # pallas wants power-of-two tiles
+    n = args.points
     print(f"device: {jax.devices()[0]}  points: {n}")
 
     # --- elementwise ops (test_cuda's rotation/transform/ego trio) ---
@@ -46,11 +45,11 @@ def main():
     tr = jax.jit(lambda p: transform_4x4(p, jnp.asarray(t)))
     ego = jax.jit(lambda p: ego_mask(p, 2.5))
     for name, fn in [("rotate_2d", rot), ("transform_4x4", tr), ("ego_mask", ego)]:
-        np.asarray(fn(cube))  # warmup + sync (compile outside timed region)
+        jax.block_until_ready(fn(cube))  # compile outside timed region
         t0 = time.perf_counter()
         for _ in range(args.reps):
             out = fn(cube)
-        s = np.asarray(out)  # sync
+        jax.block_until_ready(out)
         print(f"  {name:16s} {(time.perf_counter()-t0)/args.reps*1e3:8.3f} ms")
 
     # numeric parity of rotation vs numpy at 1e-6-ish (test_cuda.cpp:39-56)
@@ -72,11 +71,11 @@ def main():
     for impl in args.impls:
         fn = make_filter_ground(cfg, impl=impl)
         try:
-            res = fn(xyz, valid)
-            g = int(res.ground.sum())
+            jax.block_until_ready(fn(xyz, valid))
             t0 = time.perf_counter()
             for _ in range(args.reps):
                 res = fn(xyz, valid)
+            jax.block_until_ready(res)
             g = int(res.ground.sum())
             dt = (time.perf_counter() - t0) / args.reps
             masks[impl] = np.asarray(res.ground)
@@ -89,24 +88,10 @@ def main():
     ok = True
     for a in impls[1:]:
         mm = int((masks[impls[0]] != masks[a]).sum())
-        # Contract (PARITY.md "Floating-point boundaries"): scatter/onehot/
-        # fused are bitwise-identical; the standalone pallas seg-ops impl is
-        # IoU-level on large random scenes (per-tile f32 summation order
-        # flips borderline points — observed ~1e-4 rate, production paths
-        # unaffected).
-        if a == "pallas":
-            inter = int((masks[impls[0]] & masks[a]).sum())
-            union = int((masks[impls[0]] | masks[a]).sum())
-            iou = inter / max(union, 1)
-            good = iou >= 0.999
-            ok &= good
-            print(f"  mask parity {impls[0]} vs {a}: {mm} mismatches, "
-                  f"IoU {iou:.6f} ({'PASS' if good else 'FAIL'} at "
-                  f"IoU-level contract)")
-        else:
-            ok &= mm == 0
-            print(f"  mask parity {impls[0]} vs {a}: {mm} mismatches "
-                  f"({'PASS' if mm == 0 else 'FAIL'})")
+        # contract (PARITY.md): the impls are bitwise-identical
+        ok &= mm == 0
+        print(f"  mask parity {impls[0]} vs {a}: {mm} mismatches "
+              f"({'PASS' if mm == 0 else 'FAIL'})")
     print("ALL PARITY PASS" if ok else "PARITY FAILURES", flush=True)
     return 0 if ok else 1
 

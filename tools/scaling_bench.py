@@ -1,25 +1,17 @@
 #!/usr/bin/env python
-"""Scaling-efficiency measurement over a device mesh.
+"""Weak-scaling efficiency of the batched engine over a device mesh.
 
-BASELINE.md target: >= 80% scaling efficiency at 2+ hosts.  This tool
-measures weak scaling of the batched engine over the data axis: a fixed
-per-device scan load, mesh sizes 1..D, efficiency = t(1) / t(D) (for weak
-scaling the ideal is a constant time per step as devices and total work
-grow together).
+A fixed per-device scan load, mesh sizes 1..D, efficiency = t(1) / t(D)
+(for weak scaling the ideal is a constant time per step as devices and
+total work grow together).  ``--sp 1`` runs the dp-sharded engine
+(parallel/sharded.make_dp_sharded_filter_ground, whole scans per device);
+``--sp > 1`` the GSPMD point-sharded engine.
 
-Two engine paths (--impl):
-  fused  — the production path: the fused Pallas mega-kernel per device
-           under dp shard_map (parallel/sharded.make_shardmap_fused);
-           per-chip speed matches the single-chip fused rate.
-  onehot — the GSPMD pure-XLA engine (supports sp > 1 point sharding).
+On the CPU it runs on virtual devices (XLA_FLAGS=
+--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu), which only
+validates the mechanism: they share the host's cores.
 
-On real hardware run it on a pod slice; offline it runs on the virtual
-CPU mesh (set XLA_FLAGS=--xla_force_host_platform_device_count=8
-JAX_PLATFORMS=cpu) to validate the mechanism.  Results are recorded as
-SCALING_r*.json artifacts (VERDICT r2 item 1).
-
-Usage: python tools/scaling_bench.py [--points 32768] [--per-device 2]
-                                     [--impl fused|onehot]
+Usage: python tools/scaling_bench.py [--points 32768] [--per-device 2] [--sp 1]
 """
 
 import argparse
@@ -38,9 +30,7 @@ def main():
     ap.add_argument("--points", type=int, default=32768)
     ap.add_argument("--per-device", type=int, default=2, help="scans per device")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--sp", type=int, default=1, help="point-shard factor "
-                    "(onehot impl only)")
-    ap.add_argument("--impl", choices=["fused", "onehot"], default="fused")
+    ap.add_argument("--sp", type=int, default=1, help="point-shard factor")
     args = ap.parse_args()
 
     import jax
@@ -49,22 +39,17 @@ def main():
     from patchwork_tpu import PatchworkConfig
     from patchwork_tpu.io.synthetic import demo_point_cloud
     from patchwork_tpu.parallel.mesh import make_mesh
-    from patchwork_tpu.parallel.sharded import (
-        make_sharded_filter_ground, make_shardmap_fused)
-
-    if args.impl == "fused" and args.sp != 1:
-        ap.error("--impl fused requires --sp 1 (whole scans per device)")
+    from patchwork_tpu.parallel.sharded import make_sharded_filter_ground
 
     n_dev = len(jax.devices())
     cfg = PatchworkConfig()
     sizes = [d for d in (1, 2, 4, 8, 16, 32) if d * args.sp <= n_dev]
     print(f"devices: {n_dev} x {jax.devices()[0].device_kind}; "
-          f"weak scaling ({args.impl}), "
+          f"weak scaling (sp={args.sp}), "
           f"{args.per_device} x {args.points}-pt scans/device")
     if jax.default_backend() == "cpu":
         print("  NOTE: virtual CPU devices share the same host cores - "
-              "efficiency numbers here only validate the mechanism, not "
-              "hardware scaling (run on a pod slice for real numbers)")
+              "efficiency numbers here only validate the mechanism")
 
     times = {}
     for d in sizes:
@@ -74,18 +59,12 @@ def main():
         )
         valid = jnp.ones((b, args.points), bool)
         mesh = make_mesh(d * args.sp, dp=d, sp=args.sp)
-        if args.impl == "fused":
-            fn = make_shardmap_fused(cfg.replace(segment_impl="fused"), mesh)
-        else:
-            fn = make_sharded_filter_ground(
-                cfg.replace(segment_impl="onehot"), mesh,
-                shard_points=args.sp > 1)
-        res = fn(xyz, valid)
-        s = float(res.ground.sum())  # sync
+        fn = make_sharded_filter_ground(cfg, mesh, shard_points=args.sp > 1)
+        jax.block_until_ready(fn(xyz, valid))
         t0 = time.perf_counter()
         for _ in range(args.reps):
             res = fn(xyz, valid)
-        s = float(res.ground.sum())
+        jax.block_until_ready(res)
         times[d] = (time.perf_counter() - t0) / args.reps
         eff = times[sizes[0]] / times[d]
         print(f"  dp={d:3d} (batch {b:3d}): {times[d]*1e3:9.2f} ms/step  "
@@ -94,12 +73,13 @@ def main():
     if len(sizes) > 1:
         final_eff = times[sizes[0]] / times[sizes[-1]]
         print(json.dumps({
-            "metric": f"weak_scaling_efficiency_{args.impl}_dp{sizes[-1]}",
+            "metric": f"weak_scaling_efficiency_sp{args.sp}_dp{sizes[-1]}",
             "value": round(final_eff, 4),
             "unit": "ratio",
             "extra": {
-                "impl": args.impl,
+                "sp": args.sp,
                 "backend": jax.default_backend(),
+                "device_kind": jax.devices()[0].device_kind,
                 "points": args.points,
                 "per_device": args.per_device,
                 "ms_per_step": {str(d): round(t * 1e3, 2)

@@ -67,7 +67,7 @@ def run(num_keyframes: int = 100, seed: int = 3, ba_iters: int = 4,
     from patchwork_tpu.slam.landmarks import refine_with_ba
     from patchwork_tpu.slam.odometry import OdometryConfig
 
-    enable_compilation_cache()  # one-shot process: reuse XLA:TPU compiles
+    enable_compilation_cache()  # one-shot process: reuse XLA compiles
 
     if laps is None:
         laps = max(1, num_keyframes // 100)   # constant per-frame motion
